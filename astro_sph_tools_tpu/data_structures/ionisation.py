@@ -63,9 +63,8 @@ class IonisationTableBase(IIonisationTable):
 
         For 3-D tables the constant-z plane is collapsed out first
         (:meth:`table_at_redshift`) and the lookup runs through the
-        gather-free 2-D MXU path — identical values, ~100x faster on the
-        chip at production particle counts (ION_E2E r5: the 8-corner
-        gather was 84 % of the ion-weighted render wall)."""
+        gather-free 2-D one-hot matmul path — identical values, no
+        general gather."""
         gas_state = np.asarray(gas_state)
         if self._n_input_dimensions == 3 and gas_state.shape[1] == 2:
             axes2, table2 = self.table_at_redshift(redshift)

@@ -1,12 +1,12 @@
 """Host->device streaming with background prefetch.
 
-The TPU-native analogue of the reference's thread-level IO overlap (async
+The device analogue of the reference's thread-level IO overlap (async
 field getters via ThreadPoolExecutor,
 `io/data_structures/_SnapshotBase.py:937-1007`) extended into a streaming
 pipeline (SURVEY.md §2.8: "host async prefetch pipeline feeding device
 puts"): particle fields are read from HDF5 in chunks on a background thread
 and transferred to the device ahead of consumption, so deposit compute
-overlaps both disk reads and PCIe/ICI transfers.
+overlaps both disk reads and host-to-device transfers.
 
 Usage::
 

@@ -365,17 +365,17 @@ class SnapshotSWIFT(SnapshotBase):
         ).to("Mpc")
 
     # device-grid crossover for the DM k-NN: below this, host KDTree setup
-    # beats the device grid query (see benchmarks/knn_crossover.py); "grid"
-    # / "kdtree" force an engine
+    # is taken to beat the device grid query; "grid" / "kdtree" force an
+    # engine
     dm_hsml_engine: str = "auto"
-    # measured crossover vs host KDTree on clustered periodic boxes
-    # (KNN_CROSSOVER.json: parity at 3e5, 3.3x at 1e6, 8.9x at 3e6)
+    # not yet measured on the GPU: benchmarks/knn_crossover.py locates the
+    # crossover vs host KDTree on clustered periodic boxes
     DM_HSML_DEVICE_THRESHOLD: int = 300_000
 
     def _dm_hsml_pick_engine(self, n: int) -> str:
-        """Engine for an n-particle DM k-NN pass: the measured
-        KNN_CROSSOVER.json decision (host KDTree below ~3e5, device grid
-        above), unless ``dm_hsml_engine`` forces one."""
+        """Engine for an n-particle DM k-NN pass: host KDTree below
+        ``DM_HSML_DEVICE_THRESHOLD``, device grid above, unless
+        ``dm_hsml_engine`` forces one."""
         engine = self.dm_hsml_engine
         if engine == "auto":
             return "grid" if n >= self.DM_HSML_DEVICE_THRESHOLD else "kdtree"

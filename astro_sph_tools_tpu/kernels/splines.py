@@ -18,8 +18,8 @@ The Wendland kernels (north-star requirement, BASELINE.json) are expressed
 with support ``H = 2 h`` so that the engine's ``r < 2h`` candidate masks
 (`_pixel_calculations.pyx:31`) apply uniformly.
 
-These run on the VPU: polynomial evaluation + one rsqrt-class op; branch-free
-via ``jnp.where`` so they fuse into the deposit pass.
+These are elementwise: polynomial evaluation + one rsqrt-class op;
+branch-free via ``jnp.where`` so they fuse into the deposit pass.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ quartic_spline_kernel = cubic_spline_kernel
 # W(r, h) = norm_3d / h^3 * shape_q(r / h): the hot deposit kernel hoists
 # 1/h and the normalisation to per-particle (1, C) factors and evaluates
 # only the divide-free polynomial shape on the (R, C) footprint block —
-# the (R, C)-wide divides in the W(r, h) form cost ~2x VPU time there.
+# the (R, C)-wide divides in the W(r, h) form would dominate there.
 # Each shape is exactly zero beyond its support.
 
 
@@ -246,11 +246,11 @@ def integrated_kernel_lookup(table: Array, b: Array, h: Array, support_factor: f
 
 # --- gather-free column-kernel evaluation (Pallas-safe) ----------------------
 #
-# LUT interpolation needs a vector gather, which Mosaic (Pallas TPU) does not
-# support inside kernels. For the fused sightline/spectra kernels the shape
+# LUT interpolation needs a vector gather, which a kernel's register tiles
+# do not offer. For the deposit kernel's integrated projection the shape
 # function y(u) is instead fit ONCE per kernel with a single high-degree
 # Chebyshev series in t = u^2 (even in u, so no sqrt needed) and evaluated by
-# the Clenshaw recurrence — pure FMAs on the VPU, numerically stable in f32
+# the Clenshaw recurrence — pure FMAs, numerically stable in f32
 # (max relative error at degree 44: cubic 1.0e-6, Wendland C2 2.3e-6, all
 # others <=5e-7 vs the quadrature table; inside the 1e-5 budget).
 

@@ -10,25 +10,7 @@ from .deposit_pallas import (
     deposit_tiled,
     tile_particles,
 )
-from .deposit_coherent import (
-    CoherentCaps,
-    CoherentLayout,
-    caps_from_layout,
-    caps_union,
-    deposit_2d_coherent,
-    deposit_2d_coherent_fused,
-    deposit_coherent,
-    tile_particles_coherent,
-)
-from .grid3d import GridSpec, deposit_3d
-from .grid3d_pallas import (
-    PALLAS_3D_LEVELS,
-    Tiled3DParticles,
-    deposit_3d_auto,
-    deposit_3d_pallas,
-    deposit_3d_tiled,
-    tile_particles_3d,
-)
+from .grid3d import GridSpec, deposit_3d, deposit_3d_auto
 from .interp import cubic_spline_1d, regular_grid_interpolate
 from .neighbors import (
     knn_distances,
@@ -39,7 +21,6 @@ from .neighbors import (
 )
 from .reorder import ArrayMapping, ArrayReorder, MatchPlan, match_ids
 from .sightlines import column_integrate, column_integrate_binned, los_profiles
-from .sightlines_pallas import column_integrate_pallas
 from .spectra import (
     absorption_spectra,
     absorption_spectra_binned,
@@ -47,7 +28,6 @@ from .spectra import (
     voigt_damping_kms,
     voigt_hjerting,
 )
-from .spectra_pallas import absorption_spectra_pallas
 
 from .periodic import (
     calculate_periodic,
@@ -69,33 +49,18 @@ __all__ = [
     "build_cell_list",
     "absorption_spectra",
     "absorption_spectra_binned",
-    "absorption_spectra_pallas",
     "voigt_damping_kms",
     "voigt_hjerting",
     "column_integrate",
     "column_integrate_binned",
-    "column_integrate_pallas",
     "doppler_parameter_kms",
     "cubic_spline_1d",
     "deposit_2d",
     "deposit_2d_auto",
-    "CoherentCaps",
-    "caps_from_layout",
-    "caps_union",
-    "deposit_2d_coherent",
-    "deposit_2d_coherent_fused",
-    "deposit_coherent",
-    "tile_particles_coherent",
-    "CoherentLayout",
     "deposit_2d_fixed_h",
     "deposit_2d_pallas",
     "deposit_3d",
     "deposit_3d_auto",
-    "deposit_3d_tiled",
-    "tile_particles_3d",
-    "Tiled3DParticles",
-    "deposit_3d_pallas",
-    "PALLAS_3D_LEVELS",
     "deposit_weighted_mean",
     "deposit_tiled",
     "tile_particles",

@@ -36,7 +36,7 @@ def morton_encode_3d(ix: Array, iy: Array, iz: Array) -> Array:
     """Interleave three 10-bit cell indices into a 30-bit Morton key (int32).
 
     Supports grids up to 1024^3 cells; keys preserve spatial locality so
-    cell-sorted particle arrays give coherent HBM access in gather phases.
+    cell-sorted particle arrays give coherent device-memory access in gather phases.
     """
     return (
         _part1by2(ix.astype(jnp.int32))

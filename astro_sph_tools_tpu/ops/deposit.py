@@ -18,7 +18,7 @@ Numerics preserved from the reference:
   mode (``pixel_origin="corner"``, `_pixel_calculations.pyx:11-14`); the
   default ``"center"`` samples at ``min + (index + 1/2) * pixel_size``.
 
-TPU mapping: stencil evaluation is branch-free VPU polynomial work over
+Device mapping: stencil evaluation is branch-free elementwise work over
 (chunk, K, K) blocks; the scatter-add is a single XLA scatter per chunk with
 mode='drop' for out-of-image updates. Adaptive smoothing lengths (EAGLE h
 spans ~4 dex) are handled by *support-level binning*: particles are
@@ -93,6 +93,89 @@ def _eval_weights(kernel: KernelSpec, projection: str, lut: Optional[Array], r: 
     raise ValueError(f"projection must be 'kernel3d' or 'integrated', got {projection!r}")
 
 
+def _stencil_scan(
+    image_flat: Array,  # (ny*nx, F) accumulator
+    u: Array,  # (M,) pixel-space x (padded)
+    v: Array,  # (M,) pixel-space y (padded)
+    h: Array,  # (M,) smoothing length (padded with 1.0)
+    values: Array,  # (M, F) deposit payloads (padded with 0)
+    lut: Optional[Array],
+    origin: Optional[tuple[Array, Array]],
+    *,
+    K: int,
+    shape: tuple[int, int],
+    pixel_size: tuple[float, float],  # (psx, psy) world units per pixel
+    offset: float,
+    periodic: bool,
+    kernel_name: str,
+    projection: str,
+    chunk: int,
+) -> Array:
+    """Scatter-add a K x K stencil per particle into the flat image.
+
+    ``u, v`` are pixel coordinates measured from ``origin`` — per-particle
+    integer pixel offsets ``(ox, oy)``, or None for the map's own origin.
+    A tile-local frame keeps sub-pixel positions exact in f32 where global
+    pixel coordinates at 1024^2 would carry ~6e-5 px of rounding.
+    """
+    kernel = get_kernel(kernel_name)
+    S = kernel.support_factor
+    ny, nx = shape
+    psx, psy = pixel_size
+    dtype = image_flat.dtype
+
+    n = u.shape[0]
+    n_chunks = n // chunk
+    rs = lambda a: a.reshape(n_chunks, chunk, *a.shape[1:])
+    if origin is None:
+        origin = (jnp.zeros((n,), jnp.int32),) * 2
+    ks = jnp.arange(K, dtype=jnp.int32)
+
+    def body(img, inputs):
+        cu, cv, cox, coy, ch, cvals = inputs
+        # centered K-window around the nearest sample point
+        jx0 = jnp.floor(cu - offset + 0.5).astype(jnp.int32) - (K // 2)
+        jy0 = jnp.floor(cv - offset + 0.5).astype(jnp.int32) - (K // 2)
+        jx = jx0[:, None] + ks[None, :]  # (C, K)
+        jy = jy0[:, None] + ks[None, :]
+        dxp = ((jx.astype(dtype) + offset) - cu[:, None]) * psx  # world-units
+        dyp = ((jy.astype(dtype) + offset) - cv[:, None]) * psy
+        r2 = dyp[:, :, None] ** 2 + dxp[:, None, :] ** 2  # (C, Ky, Kx)
+        support = S * ch
+        inside = r2 < (support * support)[:, None, None]
+        r = jnp.sqrt(r2)
+        w = _eval_weights(kernel, projection, lut, r, ch[:, None, None])
+        w = jnp.where(inside, w, 0.0).astype(dtype)
+
+        gx = jx + cox[:, None]
+        gy = jy + coy[:, None]
+        if periodic:
+            flat = jnp.mod(gy, ny)[:, :, None] * nx + jnp.mod(gx, nx)[:, None, :]
+        else:
+            in_x = (gx >= 0) & (gx < nx)
+            in_y = (gy >= 0) & (gy < ny)
+            valid = in_y[:, :, None] & in_x[:, None, :]
+            w = jnp.where(valid, w, 0.0)
+            # out-of-range flat index -> dropped by scatter mode='drop'
+            flat = jnp.where(
+                valid,
+                jnp.clip(gy, 0, ny - 1)[:, :, None] * nx + jnp.clip(gx, 0, nx - 1)[:, None, :],
+                -1,
+            )
+
+        updates = w[..., None] * cvals[:, None, None, :]  # (C, Ky, Kx, F)
+        img = img.at[flat.reshape(-1)].add(
+            updates.reshape(-1, updates.shape[-1]), mode="drop"
+        )
+        return img, None
+
+    image_flat, _ = jax.lax.scan(
+        body, image_flat,
+        (rs(u), rs(v), rs(origin[0]), rs(origin[1]), rs(h), rs(values)),
+    )
+    return image_flat
+
+
 @partial(
     jax.jit,
     static_argnames=(
@@ -117,65 +200,16 @@ def _stencil_level_pass(
     chunk: int,
 ) -> Array:
     """Deposit M particles with a K x K stencil into the flat image."""
-    kernel = get_kernel(kernel_name)
-    S = kernel.support_factor
     ny, nx = shape
     x0, x1, y0, y1 = extent
     psx = (x1 - x0) / nx
     psy = (y1 - y0) / ny
-    dtype = image_flat.dtype
-
-    n = x.shape[0]
-    n_chunks = n // chunk
-    x = x.reshape(n_chunks, chunk)
-    y = y.reshape(n_chunks, chunk)
-    h = h.reshape(n_chunks, chunk)
-    values = values.reshape(n_chunks, chunk, -1)
-
-    ks = jnp.arange(K, dtype=jnp.int32)
-
-    def body(img, inputs):
-        cx, cy, ch, cvals = inputs
-        u = (cx - x0) / psx  # pixel-space position
-        v = (cy - y0) / psy
-        # centered K-window around the nearest sample point
-        jx0 = jnp.floor(u - offset + 0.5).astype(jnp.int32) - (K // 2)
-        jy0 = jnp.floor(v - offset + 0.5).astype(jnp.int32) - (K // 2)
-        jx = jx0[:, None] + ks[None, :]  # (C, K)
-        jy = jy0[:, None] + ks[None, :]
-        dxp = ((jx.astype(dtype) + offset) - u[:, None]) * psx  # world-units
-        dyp = ((jy.astype(dtype) + offset) - v[:, None]) * psy
-        r2 = dyp[:, :, None] ** 2 + dxp[:, None, :] ** 2  # (C, Ky, Kx)
-        support = S * ch
-        inside = r2 < (support * support)[:, None, None]
-        r = jnp.sqrt(r2)
-        w = _eval_weights(kernel, projection, lut, r, ch[:, None, None])
-        w = jnp.where(inside, w, 0.0).astype(dtype)
-
-        if periodic:
-            jx_idx = jnp.mod(jx, nx)
-            jy_idx = jnp.mod(jy, ny)
-            flat = jy_idx[:, :, None] * nx + jx_idx[:, None, :]
-        else:
-            in_x = (jx >= 0) & (jx < nx)
-            in_y = (jy >= 0) & (jy < ny)
-            valid = in_y[:, :, None] & in_x[:, None, :]
-            w = jnp.where(valid, w, 0.0)
-            # out-of-range flat index -> dropped by scatter mode='drop'
-            flat = jnp.where(
-                valid,
-                jnp.clip(jy, 0, ny - 1)[:, :, None] * nx + jnp.clip(jx, 0, nx - 1)[:, None, :],
-                -1,
-            )
-
-        updates = w[..., None] * cvals[:, None, None, :]  # (C, Ky, Kx, F)
-        img = img.at[flat.reshape(-1)].add(
-            updates.reshape(-1, updates.shape[-1]), mode="drop"
-        )
-        return img, None
-
-    image_flat, _ = jax.lax.scan(body, image_flat, (x, y, h, values))
-    return image_flat
+    return _stencil_scan(
+        image_flat, (x - x0) / psx, (y - y0) / psy, h, values, lut, None,
+        K=K, shape=shape, pixel_size=(psx, psy), offset=offset,
+        periodic=periodic, kernel_name=kernel_name, projection=projection,
+        chunk=chunk,
+    )
 
 
 @partial(
@@ -232,7 +266,12 @@ def _dense_pass(
         inside = r2 < (support * support).reshape(tile, 1, 1)
         w = _eval_weights(kernel, projection, lut, jnp.sqrt(r2), ch.reshape(tile, 1, 1))
         w = jnp.where(inside, w, 0.0).astype(dtype)
-        contrib = jnp.einsum("pyx,pf->yxf", w, cvals.astype(dtype))
+        # HIGHEST: a GPU f32 einsum may otherwise run in TF32 (~3 decimal
+        # digits), far outside the 1e-5 map budget
+        contrib = jnp.einsum(
+            "pyx,pf->yxf", w, cvals.astype(dtype),
+            precision=jax.lax.Precision.HIGHEST,
+        )
         return img + contrib.reshape(ny * nx, -1), None
 
     image_flat, _ = jax.lax.scan(

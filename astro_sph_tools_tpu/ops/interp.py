@@ -26,10 +26,9 @@ def _onehot_weights(ax: Array, p: Array, dtype):
 
     Returns ``(A, in_bounds)`` with ``A`` (N, len(ax)) carrying ``1 - w``
     at the bracketing lower node and ``w`` at the upper one. Everything is
-    compares + tiny matmuls: TPU's general gather runs at ~60M elem/s,
-    which made the 8-corner gather formulation 84 % of the ion-weighted
-    render wall (ION_E2E r5); this form keeps the whole lookup on the
-    MXU/VPU."""
+    compares + tiny matmuls, with no general gather. The matmuls run at
+    ``Precision.HIGHEST``: a GPU f32 matmul may otherwise run in TF32,
+    whose ~3 decimal digits would round the interpolated values."""
     n = ax.shape[0]
     # searchsorted over a small axis as a sum of compares (no gather)
     ge = (p[:, None] >= ax[None, :]).astype(jnp.int32)  # (N, n)
@@ -83,11 +82,11 @@ def regular_grid_interpolate(
     table : D-dimensional value grid.
     points : (N, D) query coordinates.
     fill_value : value returned for points outside the grid hull.
-    method : "auto" uses the gather-free one-hot MXU formulation for 2-D
-        tables up to 512 nodes per axis (TPU general gather is ~60M
-        elem/s; the matmul form is ~100x faster at production particle
-        counts); "gather" forces the corner-gather formulation (the host
-        / small-N oracle), "mxu" forces the matmul form.
+    method : "auto" uses the gather-free one-hot matmul formulation for
+        2-D tables up to 512 nodes per axis (which of the two is faster on
+        the GPU is not yet measured); "gather" forces the corner-gather
+        formulation (the host / small-N oracle), "mxu" forces the matmul
+        form.
 
     Returns (N,) interpolated values.
     """

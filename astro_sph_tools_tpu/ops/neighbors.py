@@ -3,14 +3,14 @@
 The reference's neighbor workloads are (a) nearest-halo searches with scipy
 ``KDTree(boxsize=...)`` thread fan-out (`_scripts/find_nearest_haloes.py:212-215`)
 and (b) k-NN smoothing lengths for SWIFT dark matter
-(`io/SWIFT/_SnapshotSWIFT.py:58-85`). On TPU, tree walks are hostile
-(data-dependent branching); instead:
+(`io/SWIFT/_SnapshotSWIFT.py:58-85`). On an accelerator, tree walks are
+hostile (data-dependent branching); instead:
 
-- :func:`nearest_points_device` — chunked dense distance blocks on the VPU
+- :func:`nearest_points_device` — chunked dense distance blocks
   with periodic minimum-image handling and an ``argmin`` reduction:
   O(N_query x M_points) but fully vectorized. For the halo workload
   (M ~ 1e4-1e6 haloes), a 1e8-particle query sweep is ~1e13 flop-class —
-  viable on-chip, and far simpler than emulating a tree.
+  viable on the device, and far simpler than emulating a tree.
 - :func:`nearest_points_grid` — the shell-walking grid query for huge M:
   statically-unrolled Chebyshev shells over a periodic cell grid with
   per-chunk early exit, a residual spill pass, and a dense void fallback;
@@ -19,7 +19,8 @@ and (b) k-NN smoothing lengths for SWIFT dark matter
   insertion into per-query best lists over the same shell walk), used for
   SWIFT dark-matter smoothing lengths at scale.
 - :func:`nearest_points` — dispatcher: device path when M is small enough
-  to make dense blocks efficient, scipy KDTree (all cores) otherwise.
+  to make dense blocks efficient, scipy KDTree (all cores) otherwise. Its
+  thresholds are not yet measured on the GPU.
 """
 
 from __future__ import annotations
@@ -76,10 +77,10 @@ def nearest_points(
     queries, points, *, periodic_box: Optional[float] = None,
     prefer_device: Optional[bool] = None, method: Optional[str] = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Nearest-point query dispatching between the TPU engines and scipy.
+    """Nearest-point query dispatching between the device engines and scipy.
 
     Matches the reference pipeline's outputs (index into ``points`` and the
-    periodic distance). Device paths: dense VPU blocks for small point sets,
+    periodic distance). Device paths: dense blocks for small point sets,
     the shell-walking grid query (:func:`nearest_points_grid`) for large
     ones — the scipy KDTree remains available via ``method="kdtree"`` as the
     host oracle.
@@ -372,7 +373,7 @@ def nearest_points_grid(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Shell-walking nearest-point query over an on-device cell grid.
 
-    The TPU-native replacement for the reference's threaded KDTree
+    The device replacement for the reference's threaded KDTree
     (`_scripts/find_nearest_haloes.py:212-215`, SURVEY.md §2.8): points are
     bucketed into a cubic cell grid (host, one pass); each query chunk walks
     Chebyshev shells 0.._R_CAP (statically unrolled, runtime-skipped per
@@ -601,7 +602,7 @@ def knn_distances_grid(
     order so spill flags stay confined to the clustered chunks. The stage-1
     grid is sized so the occupancy tail fits the bucket cap: dense clusters
     settle immediately, which is what defeats tree-based queries' worst
-    case on TPU.
+    case on an accelerator.
 
     Exact: matches ``scipy.spatial.KDTree.query(k=k)`` distances (to f32).
     """

@@ -19,9 +19,9 @@ The construction is re-architected for device execution: instead of the
 reference's argsort-of-argsort + ``np.isin`` chains (and, in MPI form, a
 root-gather plan build measured at ~12 min for 3.4e9 IDs,
 `_ArrayReorder.py:536-572`), matching is one sort of the source IDs plus a
-``searchsorted`` of the target IDs — O((N+M) log N) with TPU-friendly
-primitives. The multi-device equivalent lives in
-``astro_sph_tools_tpu.parallel`` (sharded sort + all-to-all over ICI).
+``searchsorted`` of the target IDs — O((N+M) log N) with
+accelerator-friendly primitives. The multi-device equivalent lives in
+``astro_sph_tools_tpu.parallel`` (sharded sort + all-to-all).
 
 Works over NumPy (default: host-side, exact int64 IDs) or ``jax.numpy``
 (device-side; mind int64 requires x64 mode) via the ``xp`` argument.

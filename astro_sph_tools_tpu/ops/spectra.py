@@ -18,7 +18,7 @@ Physical line normalisation (oscillator strength, cross-section) is the
 caller's scalar: pass ``values = mass_fraction * sigma0 ...`` as desired;
 the engine returns the kernel-weighted, Doppler-broadened velocity density.
 
-Execution mirrors ``sightlines``: dense (rays x chunk) VPU blocks under
+Execution mirrors ``sightlines``: dense (rays x chunk) blocks under
 ``lax.scan``, macro-batched over particles and rays to bound per-program
 work.
 """
@@ -208,8 +208,8 @@ def _spectra_impl(
             dv, 1.0 / cb[None, :], profile, voigt_k, periodic_velocity
         )  # (B, C), normalised: integral over v = 1
 
-        # (R, B) += (R, C) @ (C, B). HIGHEST: TPU f32 dots default to
-        # bf16 multiplication; this engine is the numerics oracle.
+        # (R, B) += (R, C) @ (C, B). HIGHEST: a GPU f32 dot may otherwise
+        # run in TF32 (~3 decimal digits); this engine is the numerics oracle.
         tau = tau + jnp.einsum(
             "rc,bc->rb", w_col, phi, precision=jax.lax.Precision.HIGHEST
         )
@@ -337,7 +337,7 @@ def absorption_spectra(
 # ---------------------------------------------------------------------------
 # Cell-binned engine (config 4 at scale): same candidate scheme as
 # sightlines.column_integrate_binned — per-level cell sort, ray blocks scan
-# only their 1-ring cell-row span — with the velocity smear as an MXU matmul
+# only their 1-ring cell-row span — with the velocity smear as a matmul
 # per candidate chunk: tau[B, nbins] += w_col[B, C] @ phi[C, nbins].
 # ---------------------------------------------------------------------------
 

@@ -1,10 +1,5 @@
 """Mesh-parallel execution: sharded deposits and distributed reorder."""
 
-from .coherent import (
-    deposit_2d_coherent_sharded,
-    deposit_2d_coherent_sharded_fused,
-    pad_particles_mesh,
-)
 from .rebalance import rebalance_evenly
 from .reorder import distributed_reorder
 from .sharded_io import (
@@ -23,9 +18,6 @@ from .sightlines import absorption_spectra_sharded, column_integrate_sharded
 
 __all__ = [
     "absorption_spectra_sharded",
-    "deposit_2d_coherent_sharded",
-    "deposit_2d_coherent_sharded_fused",
-    "pad_particles_mesh",
     "column_integrate_sharded",
     "deposit_2d_sharded",
     "deposit_3d_sharded",

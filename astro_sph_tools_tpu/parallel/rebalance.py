@@ -14,8 +14,7 @@ a CONTIGUOUS local slice landing at a contiguous destination range, so the
 exchange is one ``lax.all_to_all`` of per-destination buckets built by a
 roll + range-mask (no gather/scatter anywhere). Receivers combine their
 n_dev buckets by summation — the nonzero ranges are disjoint by
-construction. Costs 2x the payload in flight; everything jit-compiled
-over ICI.
+construction. Costs 2x the payload in flight; everything jit-compiled.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ reference root-gathers both ID orders, builds a per-element rank assignment
 (~12 minutes at 3.4e9 IDs, `:572`), and moves data pair-wise through a
 round-robin ``comm.sendrecv`` tournament (`:48-84,299-373`). Here the plan
 *is* the exchange: a deterministic owner shard per ID and two
-``lax.all_to_all`` hops over ICI, everything jit-compiled:
+``lax.all_to_all`` hops between devices, everything jit-compiled:
 
 1. every ID is owned by a shard derived from its low bits;
 2. sources bucket their (id, value) pairs by owner and exchange
@@ -36,7 +36,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 Array = jax.Array
 
@@ -170,12 +170,13 @@ def distributed_reorder(
     reports if any bucket spilled (results are then incomplete).
     """
     n_dev = mesh.shape[axis_name]
+    # host arrays go straight to their shards, never whole onto one device
+    sharded = NamedSharding(mesh, P(axis_name))
 
     def channels(ids):
         if isinstance(ids, np.ndarray) and ids.dtype == np.int64:
-            hi, lo = _split_int64(ids)
-            return [jnp.asarray(hi), jnp.asarray(lo)]
-        return [jnp.asarray(ids)]
+            return [jax.device_put(c, sharded) for c in _split_int64(ids)]
+        return [jax.device_put(ids, sharded)]
 
     src_ch = channels(source_ids)
     tgt_ch = channels(target_ids)
@@ -253,4 +254,4 @@ def distributed_reorder(
         overflow = jax.lax.pmax(overflow_s | overflow_t, axis_name)
         return out, matched, overflow
 
-    return step(tuple(src_ch), jnp.asarray(source_data), tuple(tgt_ch))
+    return step(tuple(src_ch), jax.device_put(source_data, sharded), tuple(tgt_ch))

@@ -1,9 +1,9 @@
-"""Multi-chip deposit: particle sharding, psum-reduced maps, slab halo exchange.
+"""Multi-device deposit: particle sharding, psum-reduced maps, slab halo exchange.
 
-The TPU-native replacement for the reference's MPI data parallelism
+The mesh-parallel replacement for the reference's MPI data parallelism
 (SURVEY.md §2.8): instead of ``pyread_eagle.split_selection`` + mpi4py
 collectives, particles are sharded over a ``jax.sharding.Mesh`` axis and the
-render step runs under ``shard_map`` with XLA collectives over ICI:
+render step runs under ``shard_map`` with XLA collectives (NCCL between GPUs):
 
 - **2D maps** (``deposit_2d_sharded``): each device deposits its particle
   shard onto a device-local image; one ``psum`` over the mesh axis reduces
@@ -12,12 +12,12 @@ render step runs under ``shard_map`` with XLA collectives over ICI:
 - **3D voxel cubes** (``deposit_3d_sharded``): a 512^3 f32 cube is ~0.5 GB —
   the grid itself must be sharded. Each device owns a z-slab plus a 2h-wide
   halo ring; after the local deposit the halo rings travel to the
-  neighbouring slabs via ``lax.ppermute`` (ICI neighbour exchange — the
-  rebuild's analogue of the reference's periodic region splitting,
-  `_SnapshotEAGLE.py:270-296`) and are accumulated.
+  neighbouring slabs via ``lax.ppermute`` (the rebuild's analogue of the
+  reference's periodic region splitting, `_SnapshotEAGLE.py:270-296`) and
+  are accumulated.
 
-Everything here is a pure ``jit``-able function over a mesh — the driver's
-``dryrun_multichip`` compiles it on an N-virtual-device CPU mesh.
+Everything here is a pure ``jit``-able function over a mesh — the
+``dryrun_multichip`` entry compiles it on an N-virtual-device CPU mesh.
 """
 
 from __future__ import annotations
@@ -30,25 +30,23 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..kernels.splines import get_kernel
 from ..ops.deposit import MapSpec, _stencil_level_pass
 from ..ops.deposit_pallas import (
-    _CHUNK as _PALLAS_CHUNK,
+    _ALIGN,
     PALLAS_LEVELS,
-    _deposit_2d_pallas_traced,
-    _level_geometry,
+    deposit_levels_traced,
 )
-from ..ops.grid3d import GridSpec, _stencil_level_pass_3d
+from ..ops.grid3d import GridSpec, _stencil_level_pass_3d, voxel_frame
 
 Array = jax.Array
 
 
 def _pallas_level_for_K(K: int):
-    """Smallest fused-deposit level whose column window hosts a K footprint."""
+    """Smallest tiled-deposit level whose column window hosts a K footprint."""
     for cfg in PALLAS_LEVELS:
         if cfg.K >= K:
             return cfg
-    raise ValueError(f"no pallas level hosts K={K} (max {PALLAS_LEVELS[-1].K})")
+    raise ValueError(f"no tiled level hosts K={K} (max {PALLAS_LEVELS[-1].K})")
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data") -> Mesh:
@@ -84,17 +82,19 @@ def deposit_2d_sharded(
     chunk: int = 8192,
     axis_name: str = "data",
     engine: str = "pallas",
-    precision: str = "bf16x2",
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
 ) -> Array:
     """Particle-sharded 2D deposit; returns the (ny, nx[, F]) reduced map.
 
-    ``engine="pallas"`` (default) runs the fused tile-sorted Pallas pass
-    per shard — the multi-chip production path (~50x the XLA stencil rate
-    per chip); ``engine="xla"`` keeps the scatter-stencil class as a slow
-    portable oracle. Inputs must be padded to a multiple of ``mesh.size *
-    chunk`` (pad with ``values = 0``, ``h = 1``). Jittable; call under
-    ``jax.jit`` for production.
+    ``engine="pallas"`` (default) runs the adaptive tiled deposit on each
+    shard — one sort into footprint levels up to the one hosting ``K``,
+    then each level through the Triton kernel on a GPU or XLA's
+    scatter-add on the CPU (see ``ops.deposit_pallas``); footprints wider
+    than ``K`` are truncated to it. ``engine="xla"`` is the single-level
+    K-stencil scatter pass, kept as the portable oracle. ``interpret`` runs
+    the kernel in the Pallas interpreter (tests). Inputs must be padded to
+    a multiple of ``mesh.size * chunk`` (pad with ``values = 0``,
+    ``h = 1``). Jittable.
     """
     single = values.ndim == 1
     if single:
@@ -108,11 +108,7 @@ def deposit_2d_sharded(
     )
 
     if engine == "pallas":
-        cfg = _pallas_level_for_K(K)
-        geom = _level_geometry(cfg, spec)
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        support_factor = get_kernel(kernel).support_factor
+        max_level = _pallas_level_for_K(K)
         extent = spec_static["extent"]
 
         @partial(
@@ -124,26 +120,17 @@ def deposit_2d_sharded(
             check_vma=False,
         )
         def step(xs, ys, hs, vs):
-            # pad the shard to the pallas chunk multiple; padding parks at
-            # the extent max with weight 0
+            # pad the shard to the layout granularity; padding parks at the
+            # extent max with weight 0
             n = xs.shape[0]
-            n_pad = ((n + _PALLAS_CHUNK - 1) // _PALLAS_CHUNK) * _PALLAS_CHUNK
+            n_pad = -(-n // _ALIGN) * _ALIGN
             if n_pad != n:
                 xs = jnp.pad(xs, (0, n_pad - n), constant_values=extent[1])
                 ys = jnp.pad(ys, (0, n_pad - n), constant_values=extent[3])
                 hs = jnp.pad(hs, (0, n_pad - n), constant_values=1.0)
                 vs = jnp.pad(vs, ((0, n_pad - n), (0, 0)))
-            img = _deposit_2d_pallas_traced(
-                xs, ys, hs, vs.T,
-                geom=geom,
-                spec_shape=spec_static["shape"],
-                spec_extent=extent,
-                periodic=spec_static["periodic"],
-                offset=spec_static["offset"],
-                n_fields=n_fields,
-                kernel=kernel,
-                support_factor=support_factor,
-                precision=precision,
+            img = deposit_levels_traced(
+                xs, ys, hs, vs.T, spec, max_level=max_level, kernel=kernel,
                 interpret=interpret,
             )  # (F, ny, nx)
             return jax.lax.psum(img, axis_name)
@@ -186,23 +173,21 @@ def deposit_3d_sharded(
     kernel: str = "cubic_spline",
     chunk: int = 2048,
     axis_name: str = "data",
-    engine: str = "pallas",
-    precision: str = "bf16x2",
-    interpret: Optional[bool] = None,
 ) -> Array:
     """Slab-sharded 3D voxel deposit with ppermute halo exchange.
-
-    ``engine="pallas"`` (default) runs the fused tile-sorted 3D Pallas pass
-    on each shard's extended slab; ``engine="xla"`` keeps the scatter-stencil
-    class as the portable oracle.
 
     The (nz, ny, nx) cube is decomposed into ``mesh.size`` z-slabs. Each
     device receives the particles whose *slab index* matches its mesh
     position (caller pre-sorts; see :func:`partition_particles_by_slab`),
     deposits into its slab extended by ``halo = K/2`` voxel planes on each
-    side, then exchanges the halo planes with its ring neighbours via
-    ``lax.ppermute`` and accumulates. Periodic in z when
-    ``spec.periodic_wrap`` (the ring wraps naturally).
+    side with the K-stencil scatter pass, then exchanges the halo planes
+    with its ring neighbours via ``lax.ppermute`` and accumulates. Periodic
+    in z when ``spec.periodic_wrap`` (the ring wraps naturally).
+
+    A NumPy ``pos`` is put into voxel frames in f64 on the host, as
+    :func:`~astro_sph_tools_tpu.ops.grid3d.deposit_3d` does, so the result
+    matches the single-device cube to f32 summation order; device arrays
+    (e.g. under ``jit``) are converted in f32 (see ``voxel_frame``).
     """
     nz, ny, nx = spec.shape
     n_dev = mesh.shape[axis_name]
@@ -210,33 +195,7 @@ def deposit_3d_sharded(
         raise ValueError(f"nz={nz} must divide over {n_dev} devices")
     slab = nz // n_dev
     halo = K // 2
-    x0, x1, y0, y1, z0, z1 = spec.extent
-    psz = (z1 - z0) / nz
-
     ext_shape = (slab + 2 * halo, ny, nx)
-
-    if engine == "pallas":
-        from ..ops.grid3d_pallas import (
-            _CHUNK as _P3D_CHUNK,
-            PALLAS_3D_LEVELS,
-            _adapt_cfg_3d,
-            _deposit_3d_pallas_traced,
-            _geometry_3d,
-        )
-
-        cfg3 = next((c for c in PALLAS_3D_LEVELS if c.K >= K), None)
-        if cfg3 is None:
-            raise ValueError(f"no 3D pallas level hosts K={K}")
-        periodic3 = (spec.periodic_wrap, spec.periodic_wrap, False)
-        # per-shard row bound: the shard's padded chunk count
-        n_shard = -(-int(pos.shape[0]) // n_dev)
-        rows_bound = max(1, -(-max(n_shard, _P3D_CHUNK) // _P3D_CHUNK))
-        cfg3 = _adapt_cfg_3d(cfg3, ext_shape, periodic3, rows_bound)
-        geom3 = _geometry_3d(cfg3, ext_shape, periodic3)
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-    elif engine != "xla":
-        raise ValueError(f"Unknown engine {engine!r} (pallas | xla)")
 
     @partial(
         jax.shard_map,
@@ -245,48 +204,23 @@ def deposit_3d_sharded(
         out_specs=P(axis_name),
         check_vma=False,
     )
-    def step(cx_cy_cz, hs, vs, _dummy):
-        cx, cy, cz = cx_cy_cz[:, 0], cx_cy_cz[:, 1], cx_cy_cz[:, 2]
+    def step(c, d, hs, vs):
         idx = jax.lax.axis_index(axis_name)
-        # local slab covers z in [z0 + idx*slab*psz, ...); extended by halo
-        local_z0 = z0 + (idx.astype(jnp.float32) * slab - halo) * psz
-        # shift particle z into extended-slab coordinates; extent is static
-        cz_local = cz - local_z0
-        ext_extent = (x0, x1, y0, y1, 0.0, (slab + 2 * halo) * psz)
+        # the extended slab holds the cube's planes [idx*slab - halo, ...)
         # x/y wrap locally (each shard holds the full x/y extent); z spill is
         # carried by the extended-slab margins + ppermute ring below
-        if engine == "pallas":
-            n = cx.shape[0]
-            n_pad = ((n + _P3D_CHUNK - 1) // _P3D_CHUNK) * _P3D_CHUNK
-            if n_pad != n:
-                cxp = jnp.pad(cx, (0, n_pad - n), constant_values=x1)
-                cyp = jnp.pad(cy, (0, n_pad - n), constant_values=y1)
-                # padding parks past the extended slab's z range
-                czp = jnp.pad(cz_local, (0, n_pad - n), constant_values=ext_extent[5])
-                hp = jnp.pad(hs, (0, n_pad - n), constant_values=1.0)
-                vp = jnp.pad(vs, (0, n_pad - n))
-            else:
-                cxp, cyp, czp, hp, vp = cx, cy, cz_local, hs, vs
-            ext = _deposit_3d_pallas_traced(
-                cxp, cyp, czp, hp, vp[None, :],
-                geom=geom3, spec_shape=ext_shape, spec_extent=ext_extent,
-                periodic=periodic3, offset=spec.sample_offset, n_fields=1,
-                kernel=kernel, precision=precision, interpret=interpret,
-            )[0]
-        else:
-            grid_flat = jnp.zeros((ext_shape[0] * ny * nx, 1), jnp.float32)
-            grid_flat = jax.lax.pcast(grid_flat, (axis_name,), to="varying")
-            grid_flat = _stencil_level_pass_3d(
-                grid_flat, cx, cy, cz_local, hs, vs[:, None],
-                K=K, shape=ext_shape, extent=ext_extent,
-                offset=spec.sample_offset,
-                periodic=(spec.periodic_wrap, spec.periodic_wrap, False),
-                kernel_name=kernel, chunk=chunk,
-            )
-            ext = grid_flat.reshape(ext_shape[0], ny, nx)
+        grid_flat = jnp.zeros((ext_shape[0] * ny * nx, 1), jnp.float32)
+        grid_flat = jax.lax.pcast(grid_flat, (axis_name,), to="varying")
+        grid_flat = _stencil_level_pass_3d(
+            grid_flat, c, d, hs, vs[:, None], idx * slab - halo,
+            K=K, shape=spec.shape, voxel_size=spec.voxel_size,
+            periodic=(spec.periodic_wrap, spec.periodic_wrap, False),
+            kernel_name=kernel, chunk=chunk, grid_nz=ext_shape[0],
+        )
+        ext = grid_flat.reshape(ext_shape[0], ny, nx)
 
         # halo exchange: my top halo planes belong to the next slab, bottom
-        # to the previous; ring ppermute over ICI
+        # to the previous; ring ppermute
         up = [(i, (i + 1) % n_dev) for i in range(n_dev)]
         down = [(i, (i - 1) % n_dev) for i in range(n_dev)]
         top = ext[slab + halo :]  # planes beyond my slab -> next device
@@ -307,9 +241,8 @@ def deposit_3d_sharded(
             body = body.at[slab - halo :].add(from_above * keep_above)
         return body
 
-    pos3 = pos.astype(jnp.float32)
-    grid = step(pos3, h.astype(jnp.float32), values.astype(jnp.float32), values)
-    return grid
+    c, d = voxel_frame(pos, spec)
+    return step(c, d, jnp.asarray(h, jnp.float32), jnp.asarray(values, jnp.float32))
 
 
 def partition_particles_by_slab(
@@ -329,7 +262,8 @@ def partition_particles_by_slab(
     pos, h, values, slab_idx = pos[order], h[order], values[order], slab_idx[order]
     counts = np.bincount(slab_idx, minlength=n_dev)
     per_dev = int(np.ceil(counts.max() / chunk) * chunk)
-    out_pos = np.zeros((n_dev * per_dev, 3), np.float32)
+    # positions keep their precision: deposit_3d_sharded converts them
+    out_pos = np.zeros((n_dev * per_dev, 3), np.result_type(pos, np.float32))
     out_h = np.ones(n_dev * per_dev, np.float32)
     out_v = np.zeros(n_dev * per_dev, np.float32)
     start = 0

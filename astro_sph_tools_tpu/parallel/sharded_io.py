@@ -1,6 +1,6 @@
 """Host-parallel snapshot ingestion into globally-sharded device arrays.
 
-The TPU-native replacement for the reference's MPI data-parallel reads
+The mesh-parallel replacement for the reference's MPI data-parallel reads
 (SURVEY.md §2.8 row 1: ``pyread_eagle.split_selection`` hands each rank
 disjoint file chunks, `io/EAGLE/_SnapshotEAGLE.py:119-130`): each JAX
 process opens its slice of the snapshot's file set
@@ -15,7 +15,7 @@ pipeline is testable on one host.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +23,10 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..data_structures.particle_types import ParticleType
-from ..io.snapshot import SnapshotBase
 from ..units import UnitArray
+
+if TYPE_CHECKING:  # the IO layer needs h5py; the device path does not
+    from ..io.snapshot import SnapshotBase
 
 
 def open_process_local_snapshot(snapshot_cls, filepath: str, **kwargs):
@@ -67,8 +69,9 @@ def sharded_from_local(
 
     sharding = NamedSharding(mesh, P(axis_name))
     if jax.process_count() == 1:
-        # single-process: the mesh shards one host's data directly
-        return jax.device_put(jnp.asarray(local), sharding)
+        # single-process: the mesh shards one host's data directly (a host
+        # array goes to its shards, never whole onto one device)
+        return jax.device_put(local, sharding)
     global_shape = (n_max * jax.process_count(),) + local.shape[1:]
     return jax.make_array_from_process_local_data(sharding, local, global_shape)
 

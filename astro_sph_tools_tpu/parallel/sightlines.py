@@ -1,17 +1,16 @@
-"""Multi-chip sightline columns and spectra (config 4 over a mesh).
+"""Multi-device sightline columns and spectra (config 4 over a mesh).
 
 Sightline columns and velocity-space spectra are *sums over particles*
-(``total_r = sum_i q_i Y(b_ri, h_i)``), so the multi-chip decomposition is
-data-parallel with no halo exchange: every process/chip integrates its local
-particle shard against the full (replicated, tiny) ray set with the fused
-single-chip Pallas engine, and the per-shard partials are reduced by
+(``total_r = sum_i q_i Y(b_ri, h_i)``), so the multi-device decomposition is
+data-parallel with no halo exchange: every process/device integrates its
+local particle shard against the full (replicated, tiny) ray set with the
+cell-binned single-device engine, and the per-shard partials are reduced by
 addition. This mirrors the reference's MPI data-parallel reads
-(`io/EAGLE/_SnapshotEAGLE.py:119-130`) + root-gather pattern, with the
-reduction expressed on device so it rides ICI when shards live on a mesh.
+(`io/EAGLE/_SnapshotEAGLE.py:119-130`) + root-gather pattern.
 
 The deposit path needs ``ppermute`` halo rings because tiles are spatial;
-rays are not tiled across chips, so this module is deliberately simple —
-the engine itself (`ops.sightlines_pallas`) is the per-chip workhorse.
+rays are not tiled across devices, so this module is deliberately simple —
+the engines themselves (``ops.sightlines``, ``ops.spectra``) do the work.
 """
 
 from __future__ import annotations
@@ -22,8 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.sightlines_pallas import column_integrate_pallas
-from ..ops.spectra_pallas import absorption_spectra_pallas
+from ..ops.sightlines import column_integrate_binned
+from ..ops.spectra import absorption_spectra_binned
 
 Array = jax.Array
 
@@ -37,9 +36,8 @@ def column_integrate_sharded(
     projection: str = "integrated",
     periodic_box: Optional[float] = None,
     devices: Optional[Sequence] = None,
-    interpret: Optional[bool] = None,
 ) -> Array:
-    """Per-ray columns from particle shards: run the fused engine per shard
+    """Per-ray columns from particle shards: run the binned engine per shard
     (on its device when ``devices`` is given), tree-sum the partials.
 
     In a multi-host deployment each process passes its single local shard
@@ -52,16 +50,16 @@ def column_integrate_sharded(
         if devices is not None:
             dev = devices[si % len(devices)]
             with jax.default_device(dev):
-                part = column_integrate_pallas(
+                part = column_integrate_binned(
                     x, y, h, values, ray_x, ray_y,
                     kernel=kernel, projection=projection,
-                    periodic_box=periodic_box, interpret=interpret,
+                    periodic_box=periodic_box,
                 )
         else:
-            part = column_integrate_pallas(
+            part = column_integrate_binned(
                 x, y, h, values, ray_x, ray_y,
                 kernel=kernel, projection=projection,
-                periodic_box=periodic_box, interpret=interpret,
+                periodic_box=periodic_box,
             )
         partials.append(part)
     total = partials[0]
@@ -81,7 +79,6 @@ def absorption_spectra_sharded(
     n_bins: int = 512,
     kernel: str = "cubic_spline",
     periodic: bool = True,
-    interpret: Optional[bool] = None,
 ):
     """Per-ray spectra from particle shards (additive over particles).
 
@@ -97,11 +94,11 @@ def absorption_spectra_sharded(
     total = None
     v_centres = None
     for pos, h, values, v_los, T in shards:
-        tau, v_centres = absorption_spectra_pallas(
+        tau, v_centres = absorption_spectra_binned(
             pos, h, values, v_los, T, ray_x, ray_y,
             cosmology=cosmology, box_size=box_size,
             atomic_weight=atomic_weight, n_bins=n_bins, kernel=kernel,
-            periodic=periodic, interpret=interpret,
+            periodic=periodic,
         )
         total = tau if total is None else total + tau
     return total, v_centres

@@ -11,15 +11,17 @@ weighted means.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 
 from .data_structures.particle_types import CoordinateAxes, ParticleType
-from .io.snapshot import SnapshotBase
 from .ops.deposit import MapSpec, deposit_2d
 from .ops.deposit_pallas import deposit_2d_auto
 from .utils.profiling import PhaseTimer
+
+if TYPE_CHECKING:  # the IO layer needs h5py; the device path does not
+    from .io.snapshot import SnapshotBase
 
 # field name -> (payload builder, weighted?)
 _KNOWN_FIELDS = ("density", "mass", "temperature", "metallicity", "velocity_los", "sfr")
@@ -125,24 +127,13 @@ def render_map_stack(
                 pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
                 projection=projection,
             )
-        elif engine == "coherent":
-            # snapshot-order engine: fastest for on-disk particle order
-            # (Peano-Hilbert curves); exact for any order. Max 4 fields.
-            from .ops.deposit_coherent import deposit_2d_coherent
-
-            maps = deposit_2d_coherent(
-                np.ascontiguousarray(pos[:, i], np.float32),
-                np.ascontiguousarray(pos[:, j], np.float32),
-                np.asarray(h, np.float32), values.astype(np.float32),
-                spec, kernel=kernel, projection=projection,
-            )
         elif engine == "xla":
             maps = deposit_2d(
                 pos[:, i], pos[:, j], h, values.T, spec, kernel=kernel, projection=projection
             )
             maps = np.moveaxis(np.asarray(maps), -1, 0)
         else:
-            raise ValueError(f"Unknown engine {engine!r} (pallas | coherent | xla)")
+            raise ValueError(f"Unknown engine {engine!r} (pallas | xla)")
         maps = np.asarray(maps)
         if maps.ndim == 2:
             maps = maps[None]
@@ -311,23 +302,23 @@ def render_halo_maps_sharded(
     kernel: str = "cubic_spline",
     particle_type: ParticleType = ParticleType.gas,
     axis_name: str = "data",
-    precision: str = "bf16x2",
 ) -> list[MapStack]:
     """Halo cutout surface-density maps from a mesh-sharded particle array
     (BASELINE config 5's multi-chip analysis shape).
 
     Each halo's render is one jit program over the mesh: periodic recentre
-    (elementwise over the sharded axis), then the fused sharded Pallas
-    deposit + psum. No host-side particle selection — out-of-cutout
+    (elementwise over the sharded axis), then the sharded tiled deposit +
+    psum. No host-side particle selection — out-of-cutout
     particles contribute nothing to the tile windows, so the full sharded
     array feeds every halo and the catalogue arrays stay host-side.
     """
     import jax
     import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from .kernels.splines import get_kernel
     from .ops.periodic import shift_centre
-    from .parallel.sharded import _PALLAS_CHUNK, deposit_2d_sharded, pad_for_mesh
+    from .parallel.sharded import _ALIGN, deposit_2d_sharded, pad_for_mesh
 
     support_max = get_kernel(kernel).support_factor * float(np.asarray(h).max())
     i, j = axis.projection_plane
@@ -335,11 +326,11 @@ def render_halo_maps_sharded(
     pos_p, h_p, m_p = pad_for_mesh(
         [np.asarray(positions, np.float32), np.asarray(h, np.float32),
          np.asarray(mass, np.float32)],
-        n_dev, _PALLAS_CHUNK, pad_values=[0.0, 1.0, 0.0],
+        n_dev, _ALIGN, pad_values=[0.0, 1.0, 0.0],
     )
-    pos_d = jnp.asarray(pos_p)
-    h_d = jnp.asarray(h_p)
-    m_d = jnp.asarray(m_p)
+    # each device receives only its particle shard
+    sharded = NamedSharding(mesh, P(axis_name))
+    pos_d, h_d, m_d = (jax.device_put(a, sharded) for a in (pos_p, h_p, m_p))
 
     centres = np.asarray(centres)
     radii = np.asarray(radii)
@@ -362,7 +353,7 @@ def render_halo_maps_sharded(
             recentred = shift_centre(pos_, centre_, box)
             return deposit_2d_sharded(
                 recentred[:, i], recentred[:, j], h_, m_, spec, mesh,
-                K=K, engine="pallas", precision=precision,
+                K=K, engine="pallas",
             )
 
         img = np.asarray(render(pos_d, h_d, m_d, centre))

@@ -175,7 +175,7 @@ def run(
             nearest_distance[:, i] = np.inf
             nearest_radius[:, i] = 0.0
             continue
-        # device shell-walking grid query for big catalogues, dense VPU
+        # device shell-walking grid query for big catalogues, dense
         # blocks for small ones (scipy KDTree stays available as the host
         # oracle via method="kdtree"); replaces the reference's threaded
         # KDTree (`_scripts/find_nearest_haloes.py:212-215`)

@@ -38,7 +38,7 @@ PARAMS = (
         "projection", None, "kernel3d (reference parity) | integrated (physical column).",
         str, default="integrated",
     ),
-    Param("engine", None, "pallas (TPU fused) | coherent (snapshot-order fused) | xla (portable).", str, default="pallas"),
+    Param("engine", None, "pallas (adaptive tiled deposit) | xla (plain scatter stencil).", str, default="pallas"),
     Param("region", None, "x0,x1,y0,y1 map extent in cMpc (default full box).",
           conversion=comma_separated(float), default=None),
     Param(
@@ -189,17 +189,9 @@ def run(
     values = np.stack(payloads, axis=0)
     with timed_phase("deposit"):
         if engine == "pallas":
-            # the fused engine currently implements kernel3d evaluation
-            maps = deposit_2d_auto(pos[:, i], pos[:, j], h, values, spec, kernel=kernel)
-        elif engine == "coherent":
-            # snapshot-order fused engine (fastest for on-disk particle order)
-            from ..ops.deposit_coherent import deposit_2d_coherent
-
-            maps = deposit_2d_coherent(
-                np.ascontiguousarray(pos[:, i], np.float32),
-                np.ascontiguousarray(pos[:, j], np.float32),
-                np.asarray(h, np.float32), values.astype(np.float32),
-                spec, kernel=kernel,
+            maps = deposit_2d_auto(
+                pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
+                projection=projection,
             )
         else:
             maps = deposit_2d(

@@ -14,10 +14,8 @@ import h5py
 import numpy as np
 
 from ..data_structures.particle_types import ParticleType
-from ..ops.sightlines import column_integrate
-from ..ops.sightlines_pallas import column_integrate_pallas
-from ..ops.spectra import absorption_spectra
-from ..ops.spectra_pallas import absorption_spectra_pallas
+from ..ops.sightlines import column_integrate, column_integrate_binned
+from ..ops.spectra import absorption_spectra, absorption_spectra_binned
 from ..utils.console import print_info, timed_phase
 from .params import Param, ScriptWrapper, comma_separated
 from .render_map import load_snapshot
@@ -52,15 +50,15 @@ PARAMS = (
     ),
     Param(
         "engine", None,
-        "Integration engine: auto | pallas | dense (auto = fused Pallas pass "
+        "Integration engine: auto | binned | dense (auto = cell-binned pass "
         "for large ray x particle workloads, dense sweep otherwise).",
         str, default="auto",
     ),
 )
 
 
-def _use_pallas(engine: str, n_pairs: float) -> bool:
-    if engine == "pallas":
+def _use_binned(engine: str, n_pairs: float) -> bool:
+    if engine == "binned":
         return True
     if engine == "dense":
         return False
@@ -120,8 +118,8 @@ def run(
 
     with timed_phase("column integration"):
         column_fn = (
-            column_integrate_pallas
-            if _use_pallas(engine, float(len(h)) * len(rx))
+            column_integrate_binned
+            if _use_binned(engine, float(len(h)) * len(rx))
             else column_integrate
         )
         cols = np.asarray(
@@ -139,11 +137,8 @@ def run(
             # rotate so the LOS axis is z for the spectra engine
             pos_rot = pos[:, [i, j, ax.value]]
             spectra_fn = (
-                absorption_spectra_pallas
-                if (
-                    _use_pallas(engine, float(len(h)) * len(rx))
-                    and spectra_bins % 128 == 0
-                )
+                absorption_spectra_binned
+                if _use_binned(engine, float(len(h)) * len(rx))
                 else absorption_spectra
             )
             tau, v_centres = spectra_fn(

@@ -2,15 +2,14 @@
 
 The reference exposes its periodic-box functions and the ArrayReorder family
 under ``astro_sph_tools.tools`` (`tools/__init__.py:5-7`); this package
-mirrors that surface over the TPU-native implementations in ``ops``, and
+mirrors that surface over the JAX implementations in ``ops``, and
 additionally ships the *working* projection engine the reference only
 intended (`tools/projections`, broken in-tree — SURVEY.md §2.9.1).
 """
 
 from ..ops.deposit import MapSpec, deposit_2d, deposit_weighted_mean
 from ..ops.deposit_pallas import deposit_2d_auto, deposit_2d_pallas
-from ..ops.grid3d import GridSpec, deposit_3d
-from ..ops.grid3d_pallas import deposit_3d_auto, deposit_3d_pallas
+from ..ops.grid3d import GridSpec, deposit_3d, deposit_3d_auto
 from ..ops.periodic import (
     calculate_periodic,
     make_periodic,
@@ -40,7 +39,7 @@ def ArrayReorder_MPI(*args, **kwargs):  # pragma: no cover - guidance shim
     raise NotImplementedError(
         "ArrayReorder_MPI is replaced by the mesh-native "
         "astro_sph_tools_tpu.parallel.distributed_reorder (owner-sharded "
-        "lax.all_to_all exchange over ICI)."
+        "lax.all_to_all exchange across the device mesh)."
     )
 
 
@@ -68,7 +67,6 @@ __all__ = [
     "deposit_2d_pallas",
     "deposit_3d",
     "deposit_3d_auto",
-    "deposit_3d_pallas",
     "deposit_weighted_mean",
     "los_profiles",
     "make_periodic",

@@ -16,7 +16,7 @@ from typing import Iterator
 
 @contextlib.contextmanager
 def device_trace(log_dir: str, *, host_profiling: bool = False) -> Iterator[None]:
-    """Capture a JAX profiler trace (XLA ops, Pallas kernels, DMA, ICI).
+    """Capture a JAX profiler trace (XLA ops, Pallas kernels, copies, collectives).
 
     View with TensorBoard or Perfetto (``xprof``). Usage::
 
@@ -69,8 +69,7 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def count_compilations() -> Iterator[list]:
-    """Count XLA compilations inside the block (VERDICT r3 item 6: the
-    warm-up budget needs the number of distinct programs a render
+    """Count XLA compilations inside the block (the warm-up budget needs the number of distinct programs a render
     compiles, not a guess).
 
     Yields a list that fills with one entry (the jit name logged by

@@ -1,18 +1,22 @@
-"""Ion-physics production benchmark (VERDICT r4 item 8).
+"""Ion-physics production benchmark.
 
 Promotes the ion-weighted workflow (`tests/test_science_workflow.py`) to
-production scale: HM01-style ionisation table -> DEVICE-side trilinear
-interp of per-particle (log n_H, log T, z) -> ion-weighted masses fused
-into the render payload stage -> zero-sync fused coherent Pallas render
-of an O VI column-density + ion-weighted-temperature 1024^2 map stack.
+production scale: HM01-style ionisation table -> device-side interp of
+per-particle (log n_H, log T) at the snapshot redshift -> ion-weighted
+masses fused into the render payload stage -> the adaptive tiled render
+(``deposit_2d_auto``) of an O VI column-density + ion-weighted-temperature
+1024^2 map stack.
 
 The gas state never returns to the host: the payload program (interp +
-weighting) and the fused render are chained device programs. Reference
+weighting) and the render are chained device programs. Reference
 capability being composed: `_IonisationTable.py:44-58` interpolation +
 the projector the reference never finished
-(`tools/projections/_projector.py`).
+(`tools/projections/_projector.py`). Needs h5py (the table is written to
+a temporary HDF5 file).
 
-Writes ION_E2E.json and prints one JSON line.
+    python benchmarks/ion_e2e.py [--n 16777216] [--repeats 3] [--out f.json]
+
+Prints one JSON line (and writes it to ``--out`` when given).
 """
 
 from __future__ import annotations
@@ -38,13 +42,9 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+    from astro_sph_tools_tpu.utils.compile_cache import use_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                     ".jax_bench_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    use_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -54,12 +54,7 @@ def main() -> int:
         write_synthetic_hm01_table,
     )
     from astro_sph_tools_tpu.ops.deposit import MapSpec
-    from astro_sph_tools_tpu.ops.deposit_coherent import (
-        caps_from_layout,
-        deposit_2d_coherent_fused,
-        deposit_coherent,
-        tile_particles_coherent,
-    )
+    from astro_sph_tools_tpu.ops.deposit_pallas import deposit_2d_auto
     from astro_sph_tools_tpu.ops.interp import regular_grid_interpolate
 
     n = args.n
@@ -98,8 +93,7 @@ def main() -> int:
     jax.block_until_ready((x, y, h, mass, log_nh, log_t))
 
     # constant snapshot z: collapse the redshift plane once, then the
-    # per-particle lookup is the gather-free 2-D MXU path (the 8-corner
-    # gather formulation was 84 % of the wall at 2^24 — ION_E2E history)
+    # per-particle lookup is the gather-free 2-D one-hot path
     axes2, grid2 = table.table_at_redshift(redshift)
     axes2 = tuple(a.astype(jnp.float32) for a in axes2)
     grid2 = grid2.astype(jnp.float32)
@@ -122,29 +116,12 @@ def main() -> int:
     spec = MapSpec(shape=(RES, RES), extent=(0.0, BOX, 0.0, BOX),
                    periodic_wrap=True)
 
-    def full_render():
+    def render():
         fields = ion_payload(log_nh, log_t, mass, temp_lin)
-        lay = tile_particles_coherent(x, y, h, fields, spec)
-        return lay
+        return deposit_2d_auto(x, y, h, fields, spec)
 
-    # calibrate caps once (synced render), then time the fused pipeline
     t0 = time.perf_counter()
-    lay = full_render()
-    maps0 = deposit_coherent(lay, precision="bf16x2")
-    jax.block_until_ready(maps0)
-    caps = caps_from_layout(lay)
-    warm_calibrate_s = time.perf_counter() - t0
-
-    def fused_pass():
-        fields = ion_payload(log_nh, log_t, mass, temp_lin)
-        maps, ok = deposit_2d_coherent_fused(
-            x, y, h, fields, spec, caps, precision="bf16x2"
-        )
-        return maps, ok
-
-    maps, ok = fused_pass()
-    jax.block_until_ready(maps)
-    assert bool(ok), "fused caps overflow on the calibration distribution"
+    maps = render()
     float(maps[0].sum())
     warm_s = time.perf_counter() - t0
 
@@ -152,9 +129,8 @@ def main() -> int:
     interp_s = float("inf")
     for _ in range(args.repeats):
         t0 = time.perf_counter()
-        maps, ok = fused_pass()
+        maps = render()
         float(maps[0].sum())
-        float(jnp.asarray(ok).astype(jnp.int32))  # the MANDATORY ok check
         best = min(best, time.perf_counter() - t0)
         t0 = time.perf_counter()
         f = ion_payload(log_nh, log_t, mass, temp_lin)
@@ -167,22 +143,18 @@ def main() -> int:
     res = {
         "metric": (
             "ion-weighted 2-field 1024^2 map stack (device HM01 interp "
-            "fused into the zero-sync coherent render)"
+            "feeding the adaptive tiled render)"
         ),
         "n_particles": n,
         "wall_s": round(best, 4),
         "particles_per_sec": round(n / best, 1),
         "interp_payload_s": round(interp_s, 4),
         "warm_first_s": round(warm_s, 2),
-        "calibrate_s": round(warm_calibrate_s, 2),
-        "fused_ok": bool(ok),
         "backend": jax.default_backend(),
     }
-    out_path = args.out or os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), os.pardir, "ION_E2E.json"
-    )
-    with open(out_path, "w") as f:
-        json.dump(res, f, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
     print(json.dumps(res), flush=True)
     return 0
 

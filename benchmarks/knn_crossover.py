@@ -3,7 +3,10 @@
 Measures the 32-NN distance derivation (SWIFT DM smoothing lengths,
 `_SnapshotSWIFT.py:58-85`) at several scales on clustered periodic boxes,
 locating the crossover that sets ``SnapshotSWIFT.DM_HSML_DEVICE_THRESHOLD``.
-Prints one JSON line and writes KNN_CROSSOVER.json.
+
+    python benchmarks/knn_crossover.py [out.json]
+
+Prints one JSON line (and writes it to ``out.json`` when given).
 """
 
 from __future__ import annotations
@@ -31,13 +34,9 @@ def clustered(rng, m, box):
 def main() -> int:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_bench_cache",
-        ),
-    )
+    from astro_sph_tools_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     from scipy.spatial import KDTree
 
     from astro_sph_tools_tpu.ops.neighbors import knn_distances_grid
@@ -78,12 +77,9 @@ def main() -> int:
 
     payload = {"metric": "32-NN distance wall (clustered periodic)", "rows": rows,
                "backend": jax.default_backend()}
-    out = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "KNN_CROSSOVER.json",
-    )
-    with open(out, "w") as f:
-        json.dump(payload, f, indent=1)
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(payload, f, indent=1)
     print(json.dumps(payload))
     return 0
 

@@ -1,14 +1,11 @@
 """Config-3-class 3D voxel benchmark: 512^3 periodic cube from a clustered
-16.8M-particle distribution with adaptive smoothing lengths, through the
-round-3 device-resident multi-level layout (`tile_particles_3d` — one fused
-composite-key sort) + fused Pallas per-level passes.
+16.8M-particle distribution with adaptive smoothing lengths, through
+``deposit_3d_auto`` (support-level binning + XLA's K^3 stencil
+scatter-add per level).
 
-Round-1's 0.60 s measurement predates the device-resident 3D layout (the
-level split then ran on the host: np.nonzero + fancy indexing + one global
-sort per level); this script re-measures the same workload shape so
-PARITY.md tracks the current engine. Writes VOXEL3D.json.
+Usage: python benchmarks/voxel3d_bench.py [--n 16777216] [--grid 512] [--out f.json]
 
-Usage: python benchmarks/voxel3d_bench.py [--n 16777216] [--grid 512]
+Prints one JSON line (and writes it to ``--out`` when given).
 """
 
 from __future__ import annotations
@@ -55,29 +52,19 @@ def main() -> int:
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_bench_cache",
-        ),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from astro_sph_tools_tpu.ops.grid3d import GridSpec, deposit_3d_auto
+    from astro_sph_tools_tpu.utils.compile_cache import use_compile_cache
 
-    from astro_sph_tools_tpu.ops.grid3d import GridSpec
-    from astro_sph_tools_tpu.ops.grid3d_pallas import (
-        deposit_3d_tiled,
-        tile_particles_3d,
-    )
+    use_compile_cache()
 
     box = 25.0
     g = args.grid
     spec = GridSpec(
         shape=(g, g, g), extent=(0, box, 0, box, 0, box), periodic_wrap=True
     )
-    # cap h inside the largest Pallas level so the run stays device-resident
+    # cap h inside the K=16 stencil level (no dense fallback)
     vox = box / g
-    h_max = 0.45 * 16 * vox  # K=16 level bound with margin
+    h_max = 0.45 * 16 * vox
 
     t0 = time.perf_counter()
     pos, h, vals = build_particles(args.n, box)
@@ -85,24 +72,19 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
 
     def full():
-        tp = tile_particles_3d(pos, h, vals[None], spec, donate=False)
-        out = deposit_3d_tiled(tp, precision="bf16x2")
-        return tp, out
+        return deposit_3d_auto(pos, h, vals, spec)
 
     t0 = time.perf_counter()
-    tp, out = full()
-    checksum = float(out[0].sum())
+    out = full()
+    checksum = float(out.sum())
     warm_s = time.perf_counter() - t0
-    level_counts = {str(k): int(v) for k, v in tp.stats.items()} if hasattr(
-        tp, "stats"
-    ) else {}
 
     wall = 1e30
     for _ in range(args.repeats):
-        del tp, out
+        del out
         t0 = time.perf_counter()
-        tp, out = full()
-        s = float(out[0].sum())
+        out = full()
+        s = float(out.sum())
         wall = min(wall, time.perf_counter() - t0)
         assert abs(s / checksum - 1) < 1e-5
 
@@ -115,16 +97,12 @@ def main() -> int:
         "warm_first_s": round(warm_s, 2),
         "gen_s": round(gen_s, 2),
         "checksum": checksum,
-        "level_counts": level_counts,
         "backend": jax.default_backend(),
     }
     print(json.dumps(res), flush=True)
-    out_path = args.out or os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "VOXEL3D.json",
-    )
-    with open(out_path, "w") as f:
-        json.dump(res, f, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
     return 0
 
 

@@ -4,7 +4,7 @@ Generates a synthetic EAGLE-format simulation directory, then walks every
 major capability: discovery, snapshot/catalogue reads, maps (2D stacks, halo
 cutouts), 3D cubes, sightlines + spectra, ID reorder, nearest haloes,
 ionisation tables, and the particle-filter sidecar. Runs anywhere
-(CPU-safe); on a TPU host the deposit engines use the fused Pallas passes.
+(CPU-safe); on a GPU host the 2D deposit runs its compiled Triton kernel.
 
     python examples/full_workflow.py [workdir]
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -20,7 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> None:
-    workdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/ast_tpu_workflow"
+    workdir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        tempfile.gettempdir(), "ast_workflow"
+    )
     os.makedirs(workdir, exist_ok=True)
 
     from astro_sph_tools_tpu.data_structures import CoordinateAxes, ParticleType
@@ -40,8 +43,7 @@ def main() -> None:
         write_los_file,
         write_snapshot,
     )
-    from astro_sph_tools_tpu.ops.grid3d import GridSpec
-    from astro_sph_tools_tpu.ops.grid3d_pallas import deposit_3d_auto
+    from astro_sph_tools_tpu.ops.grid3d import GridSpec, deposit_3d_auto
     from astro_sph_tools_tpu.ops.reorder import ArrayReorder
     from astro_sph_tools_tpu.ops.sightlines import column_integrate
     from astro_sph_tools_tpu.ops.spectra import absorption_spectra

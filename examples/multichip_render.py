@@ -1,19 +1,19 @@
-"""Multi-chip rendering tour: the mesh-sharded engines.
+"""Multi-device rendering tour: the mesh-sharded engines.
 
-Shows the TPU-native scaling story on any machine — run with a virtual
-8-device CPU mesh:
+Shows the scaling story on any machine — run with a virtual 8-device CPU
+mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_render.py
 
-On a real TPU pod slice the same code runs over the physical mesh: each
-chip holds a particle shard, the Pallas deposit runs per shard, and the
-map stack reduces with one ``psum`` over ICI (the ``ArrayReorder_MPI``
-/ mpi4py layer of the reference maps to ``shard_map`` + collectives;
-cf. `/root/reference/src/astro_sph_tools/tools/_ArrayReorder.py:262-656`).
+On a multi-GPU host the same code runs over the physical mesh: each device
+holds a particle shard, the adaptive deposit runs per shard, and the map
+stack reduces with one ``psum`` (the ``ArrayReorder_MPI`` / mpi4py layer of
+the reference maps to ``shard_map`` + collectives; cf. the reference's
+`tools/_ArrayReorder.py:262-656`).
 
 Covered:
-1. coherent-order adaptive deposit over the mesh (the headline engine)
+1. adaptive tiled deposit over the mesh
 2. slab-sharded 3D voxel cube with ppermute halo exchange
 3. distributed ID-matched reorder (the ArrayReorder_MPI replacement)
 4. sharded sightline columns
@@ -39,11 +39,11 @@ def main() -> None:
     from astro_sph_tools_tpu.ops.deposit import MapSpec
     from astro_sph_tools_tpu.ops.grid3d import GridSpec
     from astro_sph_tools_tpu.parallel import (
-        deposit_2d_coherent_sharded,
+        deposit_2d_sharded,
         deposit_3d_sharded,
         distributed_reorder,
         make_mesh,
-        pad_particles_mesh,
+        pad_for_mesh,
     )
     from astro_sph_tools_tpu.parallel.sharded import partition_particles_by_slab
     from astro_sph_tools_tpu.parallel.sightlines import column_integrate_sharded
@@ -52,8 +52,8 @@ def main() -> None:
     rng = np.random.default_rng(11)
     box = 20.0
 
-    # --- 1. the headline engine over the mesh: snapshot-ordered particles,
-    # adaptive h, one psum of the map stack ---
+    # --- 1. the adaptive deposit over the mesh: snapshot-ordered
+    # particles, adaptive h, one psum of the map stack ---
     n = 200_000
     spec = MapSpec(shape=(256, 256), extent=(0, box, 0, box), periodic_wrap=True)
     px = box / 256
@@ -67,14 +67,17 @@ def main() -> None:
     t = rng.uniform(1e4, 1e6, n).astype(np.float32)
     fields = np.stack([m, m * t])
 
-    xp, yp, hp, fp = pad_particles_mesh(
-        x, y, h.astype(np.float32), fields, spec, n_dev
+    xp, yp, hp, fp = pad_for_mesh(
+        [x, y, h.astype(np.float32), fields.T], n_dev, 2048,
+        pad_values=[box, box, 1.0, 0.0],
     )
-    stack = deposit_2d_coherent_sharded(xp, yp, hp, fp, spec, mesh)
-    sigma, sig_t = np.asarray(stack)
+    stack = jax.jit(
+        lambda *a: deposit_2d_sharded(*a, spec, mesh, K=32)
+    )(xp, yp, hp, fp)
+    sigma, sig_t = np.moveaxis(np.asarray(stack), -1, 0)
     mean_t = np.where(sigma > 0, sig_t / np.maximum(sigma, 1e-30), 0.0)
     print(
-        f"1. sharded coherent deposit: stack {stack.shape}, "
+        f"1. sharded adaptive deposit: stack {stack.shape}, "
         f"total mass-weight {sigma.sum() * px * px:.3e}, "
         f"mean-T map range [{mean_t[mean_t > 0].min():.3g}, {mean_t.max():.3g}] K"
     )

@@ -1,28 +1,23 @@
 """Resident render-service pattern: amortised compiles, donated buffers.
 
 A production map service renders a stream of snapshot chunks against a
-fixed map geometry. Two properties of the coherent engine make the steady
-state fast, and this example demonstrates both:
+fixed map geometry. Two properties of the adaptive tiled engine
+(``ops.deposit_pallas``) make the steady state fast, and this example
+demonstrates both:
 
-1. **Bounded program variety** — every expensive compiled program is keyed
-   on *size classes* (pow2 particle padding, 3-bit-class tail capacities,
-   4096-step candidate schedules), so chunk-to-chunk count jitter does NOT
-   recompile. After the first chunk of a given shape class, later chunks
-   reuse every executable (`tests/test_deposit_coherent.py::
-   test_gather_program_variety_bounded` pins this).
-2. **Donated inputs** — `tile_particles_coherent(..., donate=True)` lets
-   XLA reuse the input buffers for the layout, halving peak HBM in the
+1. **Bounded program variety** — every compiled program is keyed on
+   *size classes* (padded particle counts, 3-bit-class level buckets), so
+   chunk-to-chunk count jitter does NOT recompile. After the first chunk
+   of a given shape class, later chunks reuse every executable.
+2. **Donated inputs** — ``tile_particles(..., donate=True)`` lets XLA reuse
+   the input buffers for the layout, lowering peak device memory in the
    build. The service must not touch the donated arrays afterwards (it
    streams fresh chunks anyway).
 
-The stage-A prep engine is selectable: `prep="xla"` (measured default) or
-`prep="pallas"` (fused single-pass row prep; see
-`ops/coherent_prep_pallas.py`).
-
     python examples/render_service.py
 
-Runs anywhere (CPU-safe, small sizes); on a TPU host the same code is the
-per-chip north-star configuration (NORTHSTAR.json).
+Runs anywhere (CPU-safe, small sizes); on a GPU the deposit runs its
+compiled Triton kernel.
 """
 
 from __future__ import annotations
@@ -41,10 +36,7 @@ def synthetic_chunk(rng, n, box, px):
     real EAGLE read; see io.prefetch.stream_macro_chunks for the IO side)."""
     cx = rng.uniform(0, box, n)
     cy = rng.uniform(0, box, n)
-    # 32x32 storage cells: at this N a 2048-particle row spans ~1-2 cells,
-    # the row-coherence regime a real PH-ordered snapshot shows at 2^25+
-    # (row-coherence needs high particle count per level-0 tile; a toy N
-    # over a large map degrades gracefully to heavy whole-row routing)
+    # 32x32 storage cells in snapshot (space-filling-curve-like) order
     cell = (
         np.floor(cy / (box / 32)).astype(int) * 32
         + np.floor(cx / (box / 32)).astype(int)
@@ -63,13 +55,10 @@ def synthetic_chunk(rng, n, box, px):
 
 
 def main() -> None:
+    import jax.numpy as jnp
+
     from astro_sph_tools_tpu.ops.deposit import MapSpec
-    from astro_sph_tools_tpu.ops.deposit_coherent import (
-        caps_from_layout,
-        deposit_2d_coherent_fused,
-        deposit_coherent,
-        tile_particles_coherent,
-    )
+    from astro_sph_tools_tpu.ops.deposit_pallas import deposit_tiled, tile_particles
 
     box = 25.0
     res = 256
@@ -78,49 +67,24 @@ def main() -> None:
     n_chunks = 4
     n = 120_000  # per chunk; a real service streams ~2^25 per macro-chunk
 
-    # Chunk 0 runs the SYNCED engine: one host round-trip reads the counts,
-    # which calibrate static capacities for every later chunk
-    # (occupancy-based: count + 6*sqrt(count) headroom — ~1-3% inflation,
-    # which is why the fused render is now FASTER than the synced engine at
-    # north-star scale, NORTHSTAR_FUSED.json). Chunks 1+ run the zero-sync
-    # fused render — one program dispatch, no counts back to the host; the
-    # on-device `ok` flag certifies the capacities held (check it lazily;
-    # re-render the rare overflowing chunk synced).
     total = None
-    caps = None
-    pending_ok = []
     for ci in range(n_chunks):
-        x, y, h, fields = synthetic_chunk(rng, n, box, box / res)
+        # count jitter between chunks stays inside one size class
+        x, y, h, fields = synthetic_chunk(
+            rng, n - int(rng.integers(0, 1000)), box, box / res
+        )
         t0 = time.perf_counter()
-        if caps is None:
-            # donate=True: the layout may reuse x/y/h/fields buffers — do
-            # not read them after this call
-            layout = tile_particles_coherent(
-                x, y, h, fields, spec, donate=True, prep="xla"
-            )
-            caps = caps_from_layout(layout)
-            maps = deposit_coherent(layout, precision="bf16x2")
-            note = (
-                f"synced calibration (coherent rows "
-                f"{layout.stats['coherent_fraction']:.0%}, candidates "
-                f"{layout.stats['n_candidates']}, routed tail "
-                f"{layout.stats['routed_particles']})"
-            )
-        else:
-            maps, ok = deposit_2d_coherent_fused(
-                x, y, h, fields, spec, caps, precision="bf16x2", donate=True
-            )
-            pending_ok.append((ci, ok))
-            note = "fused zero-sync"
+        # donate=True: the layout may reuse the device copies of x/y/h/fields
+        # — do not read them after this call
+        layout = tile_particles(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(h), jnp.asarray(fields),
+            spec, need_perm=False, donate=True,
+        )
+        maps = deposit_tiled(layout)
         total = maps if total is None else total + maps
         dt = time.perf_counter() - t0
-        print(f"chunk {ci + 1}/{n_chunks}: {dt * 1e3:7.1f} ms  {note}", flush=True)
-
-    # settle the deferred capacity checks with ONE host fetch at the end
-    # (a real service would re-render any failed chunk through the synced
-    # engine and refresh caps via caps_from_layout)
-    bad = [ci for ci, ok in pending_ok if not bool(ok)]
-    assert not bad, f"capacity overflow on chunks {bad}: re-render synced"
+        levels = {f"K={g.cfg.K}": count for g, _, _, count in layout.geoms}
+        print(f"chunk {ci + 1}/{n_chunks}: {dt * 1e3:7.1f} ms  {levels}", flush=True)
 
     sigma = np.asarray(total[0])
     mean_t = np.where(sigma > 0, np.asarray(total[1]) / np.maximum(sigma, 1e-30), 0)

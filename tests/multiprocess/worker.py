@@ -124,7 +124,7 @@ def main() -> int:
     box = float(snap.box_size.value[0])
     spec = MapSpec(shape=(64, 64), extent=(0.0, box, 0.0, box))
     img = deposit_2d_sharded(
-        bx, by, bh, bm, spec, mesh, precision="f32", K=64,
+        bx, by, bh, bm, spec, mesh, K=64,
     )
     img_local = np.asarray(img)  # fully replicated after psum
 

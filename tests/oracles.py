@@ -3,7 +3,7 @@
 These are direct ports of the semantics in
 `/root/reference/src/astro_sph_tools/tools/projections/` (per-pixel gather,
 3D kernel at projected radius, r^2 < (2h)^2 mask) used as ground truth for
-the TPU deposit engine (SURVEY.md §4: "dense NumPy reference implementation
+the device deposit engines (SURVEY.md §4: "dense NumPy reference implementation
 of the projector as the oracle for the Pallas path").
 """
 
@@ -227,3 +227,61 @@ def _integrated_w_oracle(kernel: str, support_factor: float):
         return np.where(u < 1.0, y / (h * h), 0.0)
 
     return w
+
+
+def grid3d_oracle_fast(
+    pos: np.ndarray,
+    h: np.ndarray,
+    values: np.ndarray,
+    shape: tuple[int, int, int],
+    extent: tuple[float, ...],
+    kernel: str = "cubic_spline",
+    periodic: bool = False,
+    support_factor: float = 2.0,
+) -> np.ndarray:
+    """Particle-scatter f64 form of :func:`grid3d_oracle` (voxel centres):
+    O(N * K^3) with each particle's K^3 window sized to its support, for
+    grids where the per-voxel gather is intractable."""
+    nz, ny, nx = shape
+    x0, x1, y0, y1, z0, z1 = extent
+    lo = np.array([x0, y0, z0])
+    ps = np.array([(x1 - x0) / nx, (y1 - y0) / ny, (z1 - z0) / nz])
+    dims = np.array([nx, ny, nz])
+    w_fn = KERNEL_ORACLES[kernel]
+    pos = np.asarray(pos, np.float64)
+    h = np.asarray(h, np.float64)
+    values = np.asarray(values, np.float64)
+    grid = np.zeros(nz * ny * nx)
+    s_vox = support_factor * h / ps.min()
+    K_all = (2 * np.ceil(s_vox).astype(np.int64) + 2)
+    for K in np.unique(K_all):
+        sel = np.nonzero(K_all == K)[0]
+        ks = np.arange(K)
+        for c0 in range(0, sel.size, max(1, 2_000_000 // int(K) ** 3)):
+            idx = sel[c0 : c0 + max(1, 2_000_000 // int(K) ** 3)]
+            u = (pos[idx] - lo) / ps  # (C, 3) voxel coords
+            j = (np.floor(u).astype(np.int64) - K // 2)[:, :, None] + ks  # (C, 3, K)
+            d = (j + 0.5 - u[:, :, None]) * ps[None, :, None]
+            r2 = (
+                d[:, 2, :, None, None] ** 2
+                + d[:, 1, None, :, None] ** 2
+                + d[:, 0, None, None, :] ** 2
+            )
+            hs = h[idx][:, None, None, None]
+            w = np.where(
+                r2 < (support_factor * hs) ** 2, w_fn(np.sqrt(r2), hs), 0.0
+            ) * values[idx][:, None, None, None]
+            if periodic:
+                j = np.mod(j, dims[None, :, None])
+                ok = np.ones(w.shape, bool)
+            else:
+                inside = (j >= 0) & (j < dims[None, :, None])
+                ok = inside[:, 2, :, None, None] & inside[:, 1, None, :, None] & inside[:, 0, None, None, :]
+                j = np.clip(j, 0, (dims - 1)[None, :, None])
+            flat = (
+                j[:, 2, :, None, None] * (ny * nx)
+                + j[:, 1, None, :, None] * nx
+                + j[:, 0, None, None, :]
+            )
+            grid += np.bincount(flat[ok], weights=w[ok], minlength=grid.size)
+    return grid.reshape(nz, ny, nx)

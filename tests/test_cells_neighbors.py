@@ -202,9 +202,8 @@ class TestGridKnn:
 
 
 def test_dm_hsml_auto_dispatch_pins_measured_crossover(tmp_path):
-    """VERDICT r4 item 7: the auto engine choice encodes the MEASURED
-    KNN_CROSSOVER.json crossover — host KDTree at 3e4 DM particles (grid
-    was 3.5x slower there), device grid at 1e6 (3.3x faster)."""
+    """The auto engine choice follows DM_HSML_DEVICE_THRESHOLD: host
+    KDTree at 3e4 DM particles, device grid at 1e6."""
     from astro_sph_tools_tpu.io.swift import SnapshotSWIFT
     from astro_sph_tools_tpu.io.synthetic import (
         SyntheticSnapshotSpec,

@@ -53,7 +53,7 @@ class TestDepositDeterminism:
         m = rng.uniform(0.5, 2, n)
         spec = MapSpec(shape=(32, 32), extent=(0.0, box, 0.0, box))
         assert_deterministic(
-            lambda: deposit_2d_pallas(x, y, h, m, spec, precision="f32"), n_runs=2
+            lambda: deposit_2d_pallas(x, y, h, m, spec), n_runs=2
         )
 
     def test_detects_nondeterminism(self, rng):

@@ -127,7 +127,7 @@ class TestHM01:
 
 
 def test_mxu_interp_matches_gather():
-    """The gather-free one-hot MXU 2-D lookup equals the corner-gather
+    """The gather-free one-hot matmul 2-D lookup equals the corner-gather
     formulation (round-5 perf path: gathers were 84% of the ion render)."""
     import jax.numpy as jnp
 

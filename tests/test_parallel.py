@@ -28,10 +28,7 @@ def mesh():
 
 
 class TestSharded2D:
-    @pytest.mark.parametrize(
-        "engine",
-        [pytest.param("pallas", marks=pytest.mark.slow), "xla"],
-    )
+    @pytest.mark.parametrize("engine", ["pallas", "xla"])
     def test_matches_oracle(self, mesh, rng, engine):
         n = 5000
         box = 10.0
@@ -45,15 +42,12 @@ class TestSharded2D:
         img = deposit_2d_sharded(
             jnp.asarray(xp, jnp.float32), jnp.asarray(yp, jnp.float32),
             jnp.asarray(hp, jnp.float32), jnp.asarray(mp, jnp.float32),
-            spec, mesh, K=8, chunk=chunk, engine=engine, precision="f32",
+            spec, mesh, K=8, chunk=chunk, engine=engine,
         )
         expected = project_oracle(x, y, h, m, spec.shape, spec.extent)
         assert rel_err(np.asarray(img), expected) < 1e-5
 
-    @pytest.mark.parametrize(
-        "engine",
-        [pytest.param("pallas", marks=pytest.mark.slow), "xla"],
-    )
+    @pytest.mark.parametrize("engine", ["pallas", "xla"])
     def test_jit_and_multifield(self, mesh, rng, engine):
         n = 2048
         box = 10.0
@@ -71,7 +65,7 @@ class TestSharded2D:
         def render(x_, y_, h_, f_):
             return deposit_2d_sharded(
                 x_, y_, h_, f_, spec, mesh, K=8, chunk=chunk,
-                engine=engine, precision="f32",
+                engine=engine,
             )
 
         img = render(
@@ -82,8 +76,8 @@ class TestSharded2D:
         exp0 = project_oracle(x, y, h, m, spec.shape, spec.extent)
         assert rel_err(np.asarray(img[..., 0]), exp0) < 1e-5
 
-    @pytest.mark.slow
-    def test_pallas_periodic_sharded(self, mesh, rng):
+    @pytest.mark.parametrize("interpret", [False, True])
+    def test_pallas_periodic_sharded(self, mesh, rng, interpret):
         n = 3000
         box = 8.0
         x = rng.uniform(0, box, n)
@@ -96,17 +90,35 @@ class TestSharded2D:
         img = deposit_2d_sharded(
             jnp.asarray(xp, jnp.float32), jnp.asarray(yp, jnp.float32),
             jnp.asarray(hp, jnp.float32), jnp.asarray(mp, jnp.float32),
-            spec, mesh, K=8, engine="pallas", precision="f32",
+            spec, mesh, K=8, engine="pallas", interpret=interpret,
+        )
+        expected = project_oracle(x, y, h, m, spec.shape, spec.extent, periodic=True)
+        assert rel_err(np.asarray(img), expected) < 1e-5
+
+
+class TestShardedAdaptive:
+    def test_mixed_footprints_match_oracle(self, mesh, rng):
+        """Footprints spanning the K=8..32 levels in one sharded pass."""
+        n, box = 4000, 8.0
+        spec = MapSpec(shape=(64, 64), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+        px = box / 64
+        x = rng.uniform(0, box, n)
+        y = rng.uniform(0, box, n)
+        h = 10.0 ** rng.uniform(-0.5, 0.8, n) * px
+        m = rng.uniform(0.5, 2.0, n)
+        xp, yp, hp, mp = pad_for_mesh([x, y, h, m], 8, 256, pad_values=[0, 0, 1.0, 0])
+        img = deposit_2d_sharded(
+            jnp.asarray(xp, jnp.float32), jnp.asarray(yp, jnp.float32),
+            jnp.asarray(hp, jnp.float32), jnp.asarray(mp, jnp.float32),
+            spec, mesh, K=32,
         )
         expected = project_oracle(x, y, h, m, spec.shape, spec.extent, periodic=True)
         assert rel_err(np.asarray(img), expected) < 1e-5
 
 
 class TestSharded3D:
-    @pytest.mark.parametrize(
-        "engine",
-        [pytest.param("pallas", marks=pytest.mark.slow), "xla"],
-    )
+    # the slab-sharded deposit's one engine: XLA's K-stencil scatter pass
+    @pytest.mark.parametrize("engine", ["xla"])
     def test_matches_single_device(self, mesh, rng, engine):
         n = 3000
         box = 8.0
@@ -117,18 +129,13 @@ class TestSharded3D:
         spec = GridSpec(shape=(32, 24, 24), extent=(0.0, box, 0.0, box, 0.0, box))
         chunk = 256
         pp, hp, mp = partition_particles_by_slab(pos, h, m, spec, 8, chunk=chunk)
-        grid = deposit_3d_sharded(
-            jnp.asarray(pp), jnp.asarray(hp), jnp.asarray(mp), spec, mesh,
-            K=4, chunk=chunk, engine=engine, precision="f32",
-        )
+        grid = deposit_3d_sharded(pp, hp, mp, spec, mesh, K=4, chunk=chunk)
         expected = np.asarray(deposit_3d(pos, h, m, spec, chunk=512))
         assert grid.shape == spec.shape
         assert rel_err(np.asarray(grid), expected) < 1e-5
 
-    @pytest.mark.parametrize(
-        "engine",
-        [pytest.param("pallas", marks=pytest.mark.slow), "xla"],
-    )
+    # the slab-sharded deposit's one engine: XLA's K-stencil scatter pass
+    @pytest.mark.parametrize("engine", ["xla"])
     def test_periodic_slabs(self, mesh, rng, engine):
         n = 1500
         box = 8.0
@@ -145,16 +152,13 @@ class TestSharded3D:
         )
         chunk = 256
         pp, hp, mp = partition_particles_by_slab(pos, h, m, spec, 8, chunk=chunk)
-        grid = deposit_3d_sharded(
-            jnp.asarray(pp), jnp.asarray(hp), jnp.asarray(mp), spec, mesh,
-            K=4, chunk=chunk, engine=engine, precision="f32",
-        )
+        grid = deposit_3d_sharded(pp, hp, mp, spec, mesh, K=4, chunk=chunk)
         expected = np.asarray(deposit_3d(pos, h, m, spec, chunk=512))
         assert rel_err(np.asarray(grid), expected) < 1e-5
 
 
 class TestShardedHaloMaps:
-    """Config-5 shape: catalogue centres -> cutouts -> sharded Pallas render."""
+    """Config-5 shape: catalogue centres -> cutouts -> sharded tiled render."""
 
     def test_matches_oracle(self, mesh, rng):
         from astro_sph_tools_tpu.ops.periodic import shift_centre
@@ -169,7 +173,6 @@ class TestShardedHaloMaps:
         radii = np.array([1.2, 0.8, 1.5], np.float32)
         stacks = render_halo_maps_sharded(
             pos, h, m, centres, radii, [0, 2], mesh, box=box, resolution=64,
-            precision="f32",
         )
         for k, hi in enumerate([0, 2]):
             rc = np.asarray(shift_centre(pos, centres[hi], box))

@@ -86,14 +86,14 @@ class TestRebalanceEvenly:
         box = 10.0
         spec = MapSpec(shape=(64, 64), extent=(0.0, box, 0.0, box))
         img_before = np.asarray(deposit_2d_sharded(
-            *blocks, spec, mesh, K=8, precision="f32"
+            *blocks, spec, mesh, K=8
         ))
         out, new_counts = rebalance_evenly(
             blocks, np.asarray(counts), mesh, pad_values=(0, 0, 1.0, 0)
         )
         assert int(new_counts.max()) == 625
         img_after = np.asarray(deposit_2d_sharded(
-            *out, spec, mesh, K=8, precision="f32"
+            *out, spec, mesh, K=8
         ))
         x, y, h, m = truth
         exp = project_oracle(x, y, h, m, spec.shape, spec.extent)

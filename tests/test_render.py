@@ -133,18 +133,3 @@ class TestRenderHaloMaps:
             sd.size - (n // 2) ** 2
         )
         assert inner > outer  # centrally concentrated
-
-
-@pytest.mark.slow
-def test_engine_coherent_matches_pallas(snap):
-    snapshot, truth, spec = snap
-    a = render_map_stack(
-        snapshot, ["density", "temperature"], resolution=64, engine="pallas"
-    )
-    b = render_map_stack(
-        snapshot, ["density", "temperature"], resolution=64, engine="coherent"
-    )
-    for key in a.keys():
-        ref = np.asarray(a[key])
-        got = np.asarray(b[key])
-        assert np.abs(got - ref).max() <= 2e-4 * max(1e-30, np.abs(ref).max())

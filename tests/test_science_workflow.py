@@ -95,7 +95,7 @@ class TestIonWeightedWorkflow:
         img = np.asarray(
             deposit_2d_auto(
                 pos[:, 0], pos[:, 1], hs, ion_mass.astype(np.float32),
-                mspec, precision="f32",
+                mspec,
             )
         )
         exp = project_oracle(
